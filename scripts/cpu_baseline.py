@@ -1,4 +1,4 @@
-"""Measure the CPU reference-semantics baseline (BASELINE.md "TBM" row 1).
+"""Measure the CPU reference-semantics baseline (BASELINE_CPU.json).
 
 The reference repo cannot run here (g2o/pangolin not installed), so this
 reproduces its per-frame tracking hot path with the exact same OpenCV calls
@@ -12,7 +12,8 @@ of the map points the reference tracks. Keyframe-rate bundle adjustment is
 EXCLUDED (g2o unavailable), which makes this baseline faster than the true
 reference — i.e. our vs_baseline speedups are conservative.
 
-Usage: python scripts/cpu_baseline.py [--frames 200] [--out BASELINE_CPU.json]
+Usage: python scripts/cpu_baseline.py --data <ICL-NUIM dir> [--frames 200]
+           [--out BASELINE_CPU.json]
 """
 import argparse
 import json
@@ -21,14 +22,14 @@ import time
 import numpy as np
 import cv2
 
-DATA = "/root/reference/data/ICL_NUIM"
-
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--data", required=True, help="ICL-NUIM lr kt* directory")
     ap.add_argument("--frames", type=int, default=200)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    DATA = args.data
 
     fx, fy, cx, cy = 481.20, 480.0, 319.5, 239.5
     K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]])

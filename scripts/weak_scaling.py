@@ -12,8 +12,8 @@ wall(n) ~ wall(1) + comm, and the analytic comm model below bounds comm.
 
 Also prints the communication model: bytes psum'd per LM iteration
 (U (K,6,6) + g_c (K,6) + b_sub (6,K) + cg_iters x y2 (6,K) + 2 cost
-scalars, float32) vs per-shard FLOPs — the DCN-traffic estimate for a
-2-host deployment.
+scalars, float32) vs per-shard FLOPs — the cross-host traffic estimate
+for a 2-host deployment.
 
 Usage: python scripts/weak_scaling.py [--pts-per-dev 131072] [--kf 512]
 """

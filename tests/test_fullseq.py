@@ -4,12 +4,10 @@ The round-3 windowed driver collapsed only beyond ~200 frames of monocular
 tracking — precisely where the unit suite stopped. These integration gates
 run the production drivers over 600 real ICL-NUIM frames on CPU.
 
-The window scans use the XLA front-end route here (FRONTEND_BACKEND =
-"xla"): the Pallas kernels' interpret mode unrolls their 1024-step grids
-into the scan's compile (hours on CPU), while the XLA conv/gather
-front-end compiles in seconds. The driver logic under test — speculation,
-stale-candidate re-track, failure retry, mine freshness, keyframe cadence
-— is identical on either front-end.
+The gates run the conv/gather front-end route (FRONTEND_BACKEND = "xla"),
+on which their ATE bounds were pinned. The driver logic under test —
+speculation, stale-candidate re-track, failure retry, mine freshness,
+keyframe cadence — is identical on either front-end route.
 """
 import os
 

@@ -1,4 +1,4 @@
-"""Loop closure: MXU place recognition, candidate gating, pose-graph
+"""Loop closure: matmul place recognition, candidate gating, pose-graph
 correction propagation, and a synthetic drifted-loop end-to-end check."""
 import numpy as np
 import jax.numpy as jnp
@@ -256,8 +256,7 @@ class TestGateRobustness:
     def test_gate_sensitivity_band(self, rng):
         """Sweep hamming_thresh x min_score_abs around the production point:
         every setting in the band must keep FP=0 on the corridor and TP=1 on
-        the revisit (gates justified by data, not one scene — the sweep
-        result is recorded in BASELINE.md)."""
+        the revisit (gates justified by data, not one scene)."""
         base = lc.LoopClosureConfig()
         db = _corridor_db(rng, K=30)
         noisy = db[0].copy()

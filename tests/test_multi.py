@@ -106,7 +106,7 @@ def test_batched_production_length_rgbd():
     from visual_slam_tpu.utils.evaluate import ate_rmse
 
     old = frontend.FRONTEND_BACKEND
-    frontend.FRONTEND_BACKEND = "xla"  # Pallas interpret-mode too slow on CPU
+    frontend.FRONTEND_BACKEND = "xla"  # the route this gate was pinned on
     try:
         ds = ICLNUIMDataset(DATA)
         gt = ds.ground_truth()
@@ -145,7 +145,7 @@ def test_batched_production_length_mono():
     from visual_slam_tpu.utils.evaluate import ate_rmse
 
     old = frontend.FRONTEND_BACKEND
-    frontend.FRONTEND_BACKEND = "xla"  # Pallas interpret-mode too slow on CPU
+    frontend.FRONTEND_BACKEND = "xla"  # the route this gate was pinned on
     try:
         ds = ICLNUIMDataset(DATA)
         gt = ds.ground_truth()

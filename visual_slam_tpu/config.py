@@ -110,7 +110,7 @@ class BAConfig:
     # loses tracking, while CG-12 holds ATE 0.044 with zero failures (the
     # 200-frame run is indifferent: 0.019 vs 0.021).
     # "chol" = explicit reduced camera system + dense Cholesky (exact LM
-    # step; fine for short windows, fastest per-iteration on TPU).
+    # step; fine for short windows).
     solver: str = "cg"
     # RGB-D inverse-depth residual weight (information, pseudo-disparity
     # units — see ba._depth_terms). Active only in use_depth mode; 0

@@ -2,25 +2,19 @@
 
 The online solver (models/ba.py) materializes the camera-point coupling
 W as a dense (6,3,K,P) tensor and camera-side reductions as one-hot
-(K,N) matmuls — ideal MXU work at the tracking scale (K<=~128,
-P<=~16k), impossible at BASELINE.json config #5 scale (~5k keyframes,
-~1M landmarks: dense W alone would be >100 GB). This module is the same
+(K,N) matmuls — right at the tracking scale (K<=~128, P<=~16k),
+impossible at config #5 scale (~5k keyframes, ~1M
+landmarks: dense W alone would be >100 GB). This module is the same
 LM + marginalized-landmark Schur math (≙ g2o's
 VertexSBAPointXYZ.set_marginalized, reference LocalBA.py:68-77) in a
-memory-linear, TPU-layout-native form:
+memory-linear form:
 
   * every per-observation quantity is CHANNEL-MAJOR: residuals (2,N),
     pose Jacobians (12,N), point Jacobians (6,N), the coupling W (18,N)
-    — the huge N axis rides the 128-wide vector lanes, tiny channel
-    counts sit in sublanes. (The first version kept (N,2,6)/(N,6,3)
-    row-major tensors; XLA pads trailing dims of 3/6 to full lane tiles,
-    which measured 20-60 GB/s effective vs the ~700 GB/s the chip
-    delivers on (C,N) streams.)
-  * slot->camera gathers and camera segment sums go through the Pallas
-    one-hot-matmul kernels (ops/pallas/seg_kernel.py): XLA's native
-    gather/scatter is row-rate-limited (~5.3 / 15.8 ms at N=2.1M on
-    v5e; the kernels run ~3.4 / 3.5 ms and never materialize the
-    one-hot). On non-TPU backends the XLA fallbacks are used.
+    — the huge N axis is the contiguous one, so every per-slot op is a
+    (C,N) stream.
+  * slot->camera gathers (`cam_expand`, a `take`) and camera segment sums
+    (`cam_reduce`, a scatter-add) are XLA's own gather and scatter.
   * point-side reductions stay dense: slots are grouped per landmark
     (N = P*Q), so they are (C,P,Q) reshape-sums.
   * the reduced camera system S = U - W V^{-1} W^T is NEVER formed:
@@ -41,23 +35,20 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
-from ..ops.pallas import seg_kernel
 from . import ba as ba_mod
 from .ba import BAProblem, HUBER_DELTA
 
 
-def _cexp(x_t: jnp.ndarray, cam: jnp.ndarray, pallas: bool) -> jnp.ndarray:
-    """(C,K) camera table -> (C,N) per-slot rows."""
-    if pallas:
-        return seg_kernel.cam_expand(x_t, cam)
-    return seg_kernel.cam_expand_xla(x_t, cam)
+def cam_expand(x_t: jnp.ndarray, cam: jnp.ndarray) -> jnp.ndarray:
+    """(C,K) camera table -> (C,N) per-slot rows (a gather)."""
+    return jnp.take(x_t, cam, axis=1)
 
 
-def _cred(d_t: jnp.ndarray, cam: jnp.ndarray, K: int, pallas: bool) -> jnp.ndarray:
-    """(C,N) per-slot rows -> (C,K) per-camera sums."""
-    if pallas:
-        return seg_kernel.cam_reduce(d_t, cam, K)
-    return seg_kernel.cam_reduce_xla(d_t, cam, K)
+def cam_reduce(d_t: jnp.ndarray, cam: jnp.ndarray, K: int) -> jnp.ndarray:
+    """(C,N) per-slot rows -> (C,K) per-camera sums (a scatter-add; the
+    summation order is the hardware's, so sums agree with an exact
+    reference to float32 rounding, not bit for bit)."""
+    return jnp.zeros((d_t.shape[0], K), d_t.dtype).at[:, cam].add(d_t)
 
 
 def _point_sum(d_t: jnp.ndarray, P: int) -> jnp.ndarray:
@@ -72,7 +63,7 @@ def _point_expand(d_t: jnp.ndarray, N: int) -> jnp.ndarray:
     return jnp.broadcast_to(d_t[:, :, None], (C, P, N // P)).reshape(C, N)
 
 
-def _project(p: BAProblem, pallas: bool):
+def _project(p: BAProblem):
     """Channel-major projection: returns r (2,N), Xc (3,N), Rn (9,N),
     iz (N,), w_irls (N,)."""
     P = p.X.shape[0]
@@ -83,7 +74,7 @@ def _project(p: BAProblem, pallas: bool):
     Rt_t = jnp.concatenate(
         [p.R.reshape(K, 9).T, p.t.T], axis=0
     )  # (12,K)
-    Rtn = _cexp(Rt_t, p.cam, pallas)
+    Rtn = cam_expand(Rt_t, p.cam)
     Rn, tn = Rtn[:9], Rtn[9:12]  # (9,N) rows R[i,j] at 3i+j; (3,N)
     Xn = _point_expand(p.X.T, N)  # (3,N)
     Xc = jnp.stack(
@@ -128,10 +119,8 @@ def _jacobians(Xc, Rn, iz, intr):
     return Jc, Jp
 
 
-def _cost(p: BAProblem, axis_name=None, pallas: bool | None = None) -> jnp.ndarray:
-    if pallas is None:
-        pallas = jax.default_backend() == "tpu"
-    r, Xc, _, _, _ = _project(p, pallas)
+def _cost(p: BAProblem, axis_name=None) -> jnp.ndarray:
+    r, Xc, _, _, _ = _project(p)
     rn2 = r[0] * r[0] + r[1] * r[1]
     rn = jnp.sqrt(rn2 + 1e-12)
     rho = jnp.where(
@@ -166,24 +155,24 @@ def _inv3_rows(V9: jnp.ndarray) -> jnp.ndarray:
     return jnp.stack([A, B, C, D, E, F, G, H, I]) / det
 
 
-def _build(p: BAProblem, lm_lambda, axis_name=None, pallas: bool = False):
+def _build(p: BAProblem, lm_lambda, axis_name=None):
     """Hessian pieces, memory linear in N: U (K,6,6) psum-ed + damped,
     V_inv (9,P) local, g_c (K,6) psum-ed, g_p (3,P) local, WO (18,N)
     local, H_ij (E,6,6) scale-edge cross blocks."""
     K = p.R.shape[0]
     P = p.X.shape[0]
-    r, Xc, Rn, iz, w_irls = _project(p, pallas)
+    r, Xc, Rn, iz, w_irls = _project(p)
     Jc, Jp = _jacobians(Xc, Rn, iz, p.intr)
     wJc = Jc * w_irls[None, :]  # (12,N)
     wJp = Jp * w_irls[None, :]  # (6,N)
 
-    # Camera-side reductions in ONE kernel call: 21 upper-triangle U
-    # entries + 6 gradient rows, stacked (27,N).
+    # Camera-side reductions in ONE scatter: 21 upper-triangle U entries
+    # + 6 gradient rows, stacked (27,N).
     u_rows = [
         wJc[i] * Jc[j] + wJc[6 + i] * Jc[6 + j] for (i, j) in _TRIU6
     ]
     g_rows = [wJc[i] * r[0] + wJc[6 + i] * r[1] for i in range(6)]
-    red = _cred(jnp.stack(u_rows + g_rows), p.cam, K, pallas)  # (27,K)
+    red = cam_reduce(jnp.stack(u_rows + g_rows), p.cam, K)  # (27,K)
     red = ba_mod._psum(red, axis_name)
     U = jnp.zeros((K, 6, 6), red.dtype)
     for idx, (i, j) in enumerate(_TRIU6):
@@ -250,7 +239,7 @@ def _vinv_apply(V_inv: jnp.ndarray, t_p: jnp.ndarray) -> jnp.ndarray:
     )
 
 
-def _schur_matvec(x, p, U, V_inv, WO, H_ij, axis_name, pallas):
+def _schur_matvec(x, p, U, V_inv, WO, H_ij, axis_name):
     """y = (U - W V^{-1} W^T) x without forming S: expand, two per-slot
     contractions, point reduce/expand, one camera reduce."""
     K = U.shape[0]
@@ -258,23 +247,22 @@ def _schur_matvec(x, p, U, V_inv, WO, H_ij, axis_name, pallas):
     N = WO.shape[1]
     x = ba_mod._mask_cam(x, p.cam_fixed)
     y = jnp.einsum("kij,kj->ki", U, x)
-    xc6 = _cexp(x.T, p.cam, pallas)  # (6,N)
+    xc6 = cam_expand(x.T, p.cam)  # (6,N)
     t1p = _point_sum(_wt_apply(WO, xc6), P)  # (3,P) landmark-local
     t2n = _point_expand(_vinv_apply(V_inv, t1p), N)  # (3,N)
     t3 = _w_apply(WO, t2n)  # (6,N)
-    y2 = ba_mod._psum(_cred(t3, p.cam, K, pallas), axis_name)  # (6,K)
+    y2 = ba_mod._psum(cam_reduce(t3, p.cam, K), axis_name)  # (6,K)
     y = y - y2.T
     y = y.at[p.se_i].add(jnp.einsum("ekl,el->ek", H_ij, x[p.se_j]))
     y = y.at[p.se_j].add(jnp.einsum("elk,el->ek", H_ij, x[p.se_i]))
     return ba_mod._mask_cam(y, p.cam_fixed)
 
 
-def _solve_delta(p, lm_lambda, cg_iters, points_fixed, axis_name=None,
-                 pallas: bool = False):
+def _solve_delta(p, lm_lambda, cg_iters, points_fixed, axis_name=None):
     K = p.R.shape[0]
     P = p.X.shape[0]
     N = p.cam.shape[0]
-    U, V_inv, g_c, g_p, WO, H_ij = _build(p, lm_lambda, axis_name, pallas)
+    U, V_inv, g_c, g_p, WO, H_ij = _build(p, lm_lambda, axis_name)
     g_c = ba_mod._mask_cam(g_c, p.cam_fixed)
     U_inv = ba_mod._inv6(U)
 
@@ -284,12 +272,12 @@ def _solve_delta(p, lm_lambda, cg_iters, points_fixed, axis_name=None,
 
     Vg_n = _point_expand(_vinv_apply(V_inv, g_p), N)  # (3,N)
     b_sub = ba_mod._psum(
-        _cred(_w_apply(WO, Vg_n), p.cam, K, pallas), axis_name
+        cam_reduce(_w_apply(WO, Vg_n), p.cam, K), axis_name
     )  # (6,K)
     b = ba_mod._mask_cam(-(g_c - b_sub.T), p.cam_fixed)
 
     def matvec(x):
-        return _schur_matvec(x, p, U, V_inv, WO, H_ij, axis_name, pallas)
+        return _schur_matvec(x, p, U, V_inv, WO, H_ij, axis_name)
 
     def precond(x):
         return ba_mod._mask_cam(
@@ -298,7 +286,7 @@ def _solve_delta(p, lm_lambda, cg_iters, points_fixed, axis_name=None,
 
     delta_c = ba_mod._pcg(matvec, precond, b, cg_iters)
     # Back-substitute landmarks: delta_p = -V^{-1} (g_p + W^T delta_c).
-    dcn = _cexp(delta_c.T, p.cam, pallas)  # (6,N)
+    dcn = cam_expand(delta_c.T, p.cam)  # (6,N)
     back = _point_sum(_wt_apply(WO, dcn), P)  # (3,P)
     delta_p = -_vinv_apply(V_inv, g_p + back)  # (3,P)
     return delta_c, delta_p.T
@@ -306,8 +294,7 @@ def _solve_delta(p, lm_lambda, cg_iters, points_fixed, axis_name=None,
 
 @partial(
     jax.jit,
-    static_argnames=("n_iters", "cg_iters", "points_fixed", "axis_name",
-                     "use_pallas"),
+    static_argnames=("n_iters", "cg_iters", "points_fixed", "axis_name"),
 )
 def optimize(
     p: BAProblem,
@@ -316,24 +303,18 @@ def optimize(
     points_fixed: bool = False,
     init_lambda: float = 1e-4,
     axis_name: str | None = None,
-    use_pallas: bool | None = None,
 ) -> tuple[BAProblem, jnp.ndarray]:
     """LM loop — same accept/reject structure as ba.optimize, large-map
-    kernels. Returns (optimized problem, final cost).
-
-    use_pallas: None (default) auto-selects the Pallas segment kernels on
-    TPU and the XLA gather/scatter fallbacks elsewhere.
+    layout. Returns (optimized problem, final cost).
     """
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
 
     def step(carry, _):
         prob, lam, cost = carry
         delta_c, delta_p = _solve_delta(
-            prob, lam, cg_iters, points_fixed, axis_name, use_pallas
+            prob, lam, cg_iters, points_fixed, axis_name
         )
         cand = ba_mod._apply(prob, delta_c, delta_p)
-        new_cost = _cost(cand, axis_name, use_pallas)
+        new_cost = _cost(cand, axis_name)
         improved = new_cost < cost
         prob = jax.tree.map(lambda a, b: jnp.where(improved, a, b), cand, prob)
         cost = jnp.where(improved, new_cost, cost)
@@ -341,7 +322,7 @@ def optimize(
         lam = jnp.clip(lam, 1e-8, 1e2)
         return (prob, lam, cost), cost
 
-    cost0 = _cost(p, axis_name, use_pallas)
+    cost0 = _cost(p, axis_name)
     (p_out, _, cost_out), _ = jax.lax.scan(
         step,
         (p, jnp.asarray(init_lambda, p.R.dtype), cost0),

@@ -1,15 +1,16 @@
-"""Loop-closure detection and correction (TPU-native).
+"""Loop-closure detection and correction.
 
 The reference has no loop closure (its full-sequence runs accumulate scale
-and pose drift; SURVEY.md §2.3 / BASELINE.json config #2 name it as the
-capability to build). This module adds it the TPU way:
+and pose drift; SURVEY.md §2.3 / config #2 name it as the
+capability to build). This module adds it the accelerator way:
 
 * Place recognition is brute-force keyframe-vs-all-keyframes descriptor
-  scoring on the MXU — no bag-of-words tree. A frame's 256-bit descriptors
+  scoring as matmuls — no bag-of-words tree. A frame's 256-bit descriptors
   are expanded to ±1 and matmul'd against every stored keyframe's
   descriptors ((F,256)x(256,F) per keyframe, scanned over keyframes); ±1
   values are exact in bf16 so the Hamming distances are exact (see
-  ops/match.py). At F=1024, K=128 this is ~70 GFLOP — trivial MXU work,
+  ops/match.py). At F=1024, K=128 this is ~70 GFLOP of bf16 — little
+  tensor-core work,
   whereas a CPU port would need the inverted-index machinery of ORB-SLAM.
 * Geometric verification reuses the production PnP tracking step against
   the candidate keyframe's local landmark snapshot (pipeline._track_step).
@@ -54,7 +55,7 @@ class LoopClosureConfig:
 class KeyframeFeatureDB:
     """Per-keyframe raw feature store (descriptors + pixel coords).
 
-    Host-side arrays with a device mirror for the MXU scoring pass; the
+    Host-side arrays with a device mirror for the scoring matmuls; the
     mirror is updated incrementally (one row per keyframe insertion).
     """
 

@@ -1,6 +1,6 @@
 """SLAM map as fixed-capacity structure-of-arrays state.
 
-TPU-native replacement for the reference's dict-of-objects data model —
+Replacement for the reference's dict-of-objects data model —
 `Map` (src/v2/map.py:6-131), `Frame` (src/v2/frame.py:51-125), `Point`
 (src/v2/point.py:4-59). Dynamic dicts (`frames = {id: Frame}`,
 `points_3d = {id: Point}`, per-point `frames = {frame_id: (frame, uv,

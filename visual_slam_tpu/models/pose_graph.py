@@ -1,11 +1,11 @@
 """Pose-graph optimization: Gauss-Newton over SE(3) relative-pose edges and
 scale edges, batched over the edge table.
 
-TPU-native replacement for the reference's g2o pose-graph pieces:
+Replacement for the reference's g2o pose-graph pieces:
 `add_edge_between_poses` (EdgeSE3 with DCS robust kernel, LocalBA.py:97-113)
 and `AddScalingEdge` (EdgeSBAScale measuring the relative-translation norm,
 LocalBA.py:115-131), used to stabilize monocular scale across the keyframe
-chain — the scale-drift correction mode of BASELINE.json config #4 — and to
+chain — the scale-drift correction mode of config #4 — and to
 absorb loop-closure edges (config #2).
 
 Residuals:
@@ -173,8 +173,8 @@ def optimize(
     normal-equation blocks are thus partitioned by edge ownership — the
     device-partitioned analog of the reference's g2o EdgeSE3/EdgeSBAScale
     chains (LocalBA.py:97-131). Comm per GN step: one (K,6,6)+(K,6) psum;
-    per CG iteration: one (K,6) psum — K·24 bytes·cg_iters per step rides
-    ICI."""
+    per CG iteration: one (K,6) psum — K·24 bytes·cg_iters per step over
+    the device interconnect."""
     K = g.R.shape[0]
     free = (~g.fixed).astype(g.R.dtype)
 
@@ -200,7 +200,8 @@ def optimize(
 
         # Block-diagonal accumulation (scatter-add over the LOCAL edge
         # shard; E-sized, runs where the pose graph runs — host CPU for big
-        # graphs, TPU for small ones), psum'd over the mesh when sharded.
+        # graphs, the accelerator for small ones), psum'd over the mesh when
+        # sharded.
         D = jnp.zeros((K, 6, 6), R.dtype)
         D = D.at[g.e_i].add(H_ii).at[g.e_j].add(H_jj)
         D = D.at[g.s_i].add(jnp.einsum("ei,ej->eij", wSi, Si))
@@ -311,7 +312,7 @@ def optimize_dense(g: PoseGraph, n_iters: int = 10, damping: float = 1e-6):
 # validation). The 7-DoF graph gives each keyframe a log-scale and lets the
 # optimizer distribute the loop's scale discrepancy smoothly along the
 # chain — the ORB-SLAM monocular loop-correction semantics, and the full
-# meaning of BASELINE.json config #4 "scale-drift correction".
+# meaning of config #4 "scale-drift correction".
 #
 # Parameterization (world->cam): S_k = (s_k, R_k, t_k): x_cam = s_k R_k x_w
 # + t_k. Relative: S_i S_j^-1 = (s_i/s_j, R_i R_j^T, t_i - (s_i/s_j) R_rel

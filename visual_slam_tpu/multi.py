@@ -1,4 +1,4 @@
-"""Multi-sequence batched SLAM (BASELINE.json config #3).
+"""Multi-sequence batched SLAM (config #3).
 
 Runs B sequences in lockstep: one batched front-end call per step, the
 image batch DATA-PARALLEL over a device mesh (batch axis sharded with
@@ -134,7 +134,7 @@ def run_batched_windowed(
     STATUS (r5): a DEVICE-RATE EXHIBIT, not the production config #3 mode.
     It rides the same windowed scan as pipeline.run_windowed, whose
     window-quantized keyframe cadence degrades beyond ~600 frames
-    (BASELINE.md round-4: 1200-frame windowed ATE 0.68 with failure
+    (round 4: 1200-frame windowed ATE 0.68 with failure
     clusters at ~frame 1075 at window 8 AND 16). The production
     multi-sequence mode is `run_batched` (per-frame semantics, shared
     device-sharded front-end), which is gated at 600 frames/sequence in
@@ -212,7 +212,6 @@ def run_batched_windowed(
         ("max_features", cfg.frontend.max_features),
         ("quality_level", cfg.frontend.quality_level),
         ("nms_radius", cfg.frontend.nms_radius),
-        ("interpret", jax.default_backend() != "tpu"),
         ("n_hyps", cfg.tracking.pnp_hypotheses),
         ("refine_iters", cfg.tracking.refine_iters),
         ("cross_check", cfg.frontend.cross_check),

@@ -2,9 +2,10 @@
 
 The reference delegates all performance-critical host work to C++ through
 bindings (OpenCV/g2o/Pangolin — SURVEY.md §2.2); this package does the same
-for the parts that remain host-side in the TPU design: asynchronous PNG
-decode/prefetch. Falls back to PIL transparently if the shared library has
-not been built (`sh visual_slam_tpu/native/build.sh`).
+for the parts that remain host-side: asynchronous PNG decode/prefetch.
+The shared library is not version-controlled: `_load()` builds it from
+dataloader.cpp on first use (`sh visual_slam_tpu/native/build.sh`), and
+callers fall back to PIL if that fails.
 """
 from __future__ import annotations
 

@@ -1,12 +1,12 @@
 """ORB-style rotated-BRIEF binary descriptors (256 bit), fully batched.
 
-TPU-native replacement for the SIFT descriptor stage of the reference's
+Replacement for the SIFT descriptor stage of the reference's
 FeatureExtractor (src/v2/frame.py:11-13; ORB itself is what the author
-commented out at frame.py:8, and what BASELINE.json's north_star names).
+commented out at frame.py:8, and what the original north star named).
 
 All K keypoints are described at once: the 256 point-pair pattern is rotated
 by each keypoint's orientation, sampled with bilinear interpolation via one
-batched gather, compared on the VPU, and packed into uint32[8] words. No
+batched gather, compared elementwise, and packed into uint32[8] words. No
 per-keypoint loops anywhere.
 """
 from __future__ import annotations
@@ -40,9 +40,9 @@ def _make_pattern() -> np.ndarray:
 # process. NumPy constants are closed over by jit traces as literals.
 PATTERN = _make_pattern()  # (256, 2, 2) — (pair, endpoint, xy)
 # Lane-friendly flattening: [256 first endpoints, 256 second endpoints].
-# TPU arrays want a large minor dimension (lane = 128); shapes like
-# (K, 256, 2) put 2 in the lanes and waste 98% of the VPU, so all sampling
-# math below runs on (K, 512) instead.
+# Vector units want a large minor dimension; shapes like (K, 256, 2) put 2
+# in the minor dimension, so all sampling math below runs on (K, 512)
+# instead.
 _PX = np.concatenate([PATTERN[:, 0, 0], PATTERN[:, 1, 0]])  # (512,)
 _PY = np.concatenate([PATTERN[:, 0, 1], PATTERN[:, 1, 1]])  # (512,)
 
@@ -126,9 +126,9 @@ def describe(
       (K, 8) uint32 packed descriptors.
 
     NOTE: this is a TWO-dispatch composition on purpose. When the index
-    computation and the 524k-element gather land in the same XLA/TPU fusion,
-    the gather is serialized (~20 ms); materializing the indices between two
-    jits keeps the fast vector-gather path (~1.5 ms total). Inside a larger
+    computation and the 524k-element gather land in the same XLA fusion,
+    the gather can be serialized; materializing the indices between two
+    jits keeps the vector-gather path. Inside a larger
     jit use `describe_fused` (accepting the fusion penalty) or call the two
     stages explicitly.
     """
@@ -148,7 +148,7 @@ def describe_fused(
 
 
 def unpack_pm1(desc: jnp.ndarray, dtype=jnp.bfloat16) -> jnp.ndarray:
-    """(K,8) uint32 -> (K,256) ±1 values, the MXU-matmul form for matching."""
+    """(K,8) uint32 -> (K,256) ±1 values, the matmul form for matching."""
     shifts = jnp.arange(32, dtype=jnp.uint32)[None, None, :]
     bits = (desc[:, :, None] >> shifts) & jnp.uint32(1)
     bits = bits.reshape(desc.shape[0], N_BITS)

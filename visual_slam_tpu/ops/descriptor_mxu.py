@@ -1,12 +1,8 @@
-"""MXU-based rBRIEF descriptors: gather-free sampling via per-rotation
-sampling matrices.
+"""Matmul-based rBRIEF descriptors: per-keypoint patches and per-rotation
+sampling matrices instead of per-sample bilinear gathers.
 
-The bilinear-gather sampler (ops.descriptor) is at the mercy of XLA's
-gather lowering, which compiles nondeterministically on this backend. This
-path has no gathers at all:
-
-  1. ops.pallas.patch_kernel extracts a 32x32 patch per keypoint
-     (dynamic-slice copies in VMEM),
+  1. `extract_patches` cuts a 32x32 patch per keypoint out of the blurred
+     image (one dynamic slice each — a (K, 32, 32) gather),
   2. the keypoint orientation is quantized to N_BINS rotations; each bin b
      has a precomputed sampling matrix S_b (1024 x 512) whose columns hold
      the bilinear weights of one rotated BRIEF sample point,
@@ -14,13 +10,12 @@ path has no gathers at all:
      sample columns collapse into ONE difference matrix column:
      D_b = S_b[:, 256:] - S_b[:, :256] (1024 x 256), and
      bits = (patches_flat @ D_b > 0) — half the matmul of the two-column
-     form. The matmul runs over all bins on the MXU in bf16 (inputs are
-     patch intensities in [0,1] and ±bilinear weights — well inside bf16
-     range; the product feeds only a sign test, and the bin blend below
-     keeps it continuous), with a one-hot bin-selection contraction in
-     f32 (no gather). Measured on TPU v5e at K=1024: the earlier f32
-     HIGHEST-precision two-column form cost ~34 GFLOP/frame of 6-pass
-     matmul — the single hottest op in the whole pipeline.
+     form. The matmul runs over all bins in bf16 on the tensor cores
+     (inputs are patch intensities in [0,1] and ±bilinear weights — well
+     inside bf16 range; the product feeds only a sign test, and the bin
+     blend below keeps it continuous), with a one-hot bin-selection
+     contraction in f32 (no gather). At K=1024 that is 2*1024*1024*256*32
+     = 17 GFLOP/frame of bf16 — the largest matmul of the tracking step.
   4. pack bits exactly like the reference path.
 
 Rotation quantization (±180/N_BINS deg) is the standard ORB discretization
@@ -37,12 +32,11 @@ import jax
 import jax.numpy as jnp
 
 from . import descriptor as desc_ref
-from .pallas import patch_kernel
 
 N_BINS = 32
 N_BITS = desc_ref.N_BITS
 N_WORDS = desc_ref.N_WORDS
-PATCH = patch_kernel.PATCH
+PATCH = 32  # patch side; keypoint pattern fits a 31x31 window + bilinear +1
 _CENTER = PATCH // 2 - 1  # keypoint sits at (15,15) for integer corners
 
 
@@ -102,12 +96,22 @@ def orientation_from_patches(flat_patches: jnp.ndarray) -> jnp.ndarray:
 
 
 @jax.jit
-def describe_from_windows(
-    windows: jnp.ndarray, ry: jnp.ndarray, rx: jnp.ndarray
-) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Aligned windows (from ops.pallas.patch_kernel.extract_windows) ->
-    (descriptors (K,8) uint32, orientations (K,)). Gather-free."""
-    patches = patch_kernel.cut_patches(windows, ry, rx)
+def extract_patches(img: jnp.ndarray, uv: jnp.ndarray) -> jnp.ndarray:
+    """(H,W) blurred image + (K,2) keypoints -> (K,PATCH,PATCH) patches,
+    each with its keypoint at (_CENTER, _CENTER), clipped into the image."""
+    H, W = img.shape
+    corner = jnp.floor(uv) - _CENTER
+    cx = jnp.clip(corner[:, 0], 0, W - PATCH).astype(jnp.int32)
+    cy = jnp.clip(corner[:, 1], 0, H - PATCH).astype(jnp.int32)
+    return jax.vmap(
+        lambda y, x: jax.lax.dynamic_slice(img, (y, x), (PATCH, PATCH))
+    )(cy, cx)
+
+
+@jax.jit
+def describe_patches(patches: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
+    """(K,PATCH,PATCH) patches -> (descriptors (K,8) uint32,
+    orientations (K,))."""
     K = patches.shape[0]
     flat = patches.reshape(K, PATCH * PATCH)
     theta = orientation_from_patches(flat)
@@ -128,8 +132,8 @@ def _sample_and_pack(flat: jnp.ndarray, theta: jnp.ndarray) -> jnp.ndarray:
     and the 4-tap bilinear weights in [-1,1]; the blended difference only
     feeds a sign test, so the ~0.4% bf16 input rounding can flip a bit
     only where the two BRIEF samples are already within image-noise range
-    of each other. Measured end-to-end (200-frame lr ATE) to be neutral,
-    at ~12x less MXU time than the f32 HIGHEST-precision form.
+    of each other. Measured end-to-end (200-frame lr ATE) to be neutral
+    against the f32 HIGHEST-precision form.
     """
     K = flat.shape[0]
     bin_f = jnp.mod(theta, 2 * jnp.pi) / (2 * jnp.pi) * N_BINS
@@ -140,7 +144,7 @@ def _sample_and_pack(flat: jnp.ndarray, theta: jnp.ndarray) -> jnp.ndarray:
         jax.nn.one_hot(b0, N_BINS, dtype=jnp.float32) * (1 - alpha)[:, None]
         + jax.nn.one_hot(b1, N_BINS, dtype=jnp.float32) * alpha[:, None]
     )  # (K,B)
-    # All-bin difference sampling in ONE bf16 MXU pass (B,K,256)...
+    # All-bin difference sampling in ONE bf16 matmul (B,K,256)...
     outs = jnp.einsum(
         "kp,bpd->bkd",
         flat.astype(jnp.bfloat16),

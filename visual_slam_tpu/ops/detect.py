@@ -1,17 +1,26 @@
 """Corner detection: Shi-Tomasi/Harris response, NMS, fixed-K selection,
-and ORB-style orientation — all as fixed-shape XLA ops (convs on the MXU,
-elementwise on the VPU, `jax.lax.top_k` for selection).
+and ORB-style orientation — all as fixed-shape XLA ops.
 
-TPU-native replacement for `cv2.goodFeaturesToTrack(maxCorners=3000,
+Replacement for `cv2.goodFeaturesToTrack(maxCorners=3000,
 qualityLevel=0.01, minDistance=7)` in the reference's FeatureExtractor
 (src/v2/frame.py:10-14). Instead of a variable-length corner list, the
 detector returns exactly K keypoints with a validity mask — the fixed-shape
 discipline the whole framework is built on (SURVEY.md §7).
+
+Two formulations of the same detector:
+  * `detect_corners` — convolutions + `reduce_window` NMS (the "xla"
+    front-end route);
+  * `corner_peaks_and_blur` — the production route's shift-and-add
+    stencils: Sobel, 3x3 structure-tensor box sums, min-eigenvalue
+    response, border mask, separable NMS and the descriptor-stage Gaussian
+    blur as elementwise ops on whole arrays, which XLA fuses into a few
+    memory-bound loops (~78 flops/px).
 """
 from __future__ import annotations
 
 from functools import partial
 
+import numpy as np
 import jax
 import jax.numpy as jnp
 
@@ -19,9 +28,9 @@ import jax.numpy as jnp
 def _conv2d(img: jnp.ndarray, kernel: jnp.ndarray) -> jnp.ndarray:
     """Same-padding 2D convolution of a (H,W) image with a (kh,kw) kernel.
 
-    HIGHEST precision: corner selection ranks near-equal responses, and the
-    TPU's default reduced-precision convolutions reorder that ranking vs
-    CPU — exact f32 keeps detection deterministic across backends.
+    HIGHEST precision: corner selection ranks near-equal responses, and a
+    reduced-precision convolution reorders that ranking across backends —
+    exact f32 keeps detection deterministic.
     """
     return jax.lax.conv_general_dilated(
         img[None, None, :, :],
@@ -115,13 +124,96 @@ def detect_corners(
     return uv, top, valid
 
 
+def _shift(x: jnp.ndarray, dy: int, dx: int, fill: float = 0.0) -> jnp.ndarray:
+    """out[y, x] = x[y - dy, x - dx], `fill` where that falls outside."""
+    H, W = x.shape
+    p = jnp.pad(
+        x, ((max(dy, 0), max(-dy, 0)), (max(dx, 0), max(-dx, 0))),
+        constant_values=fill,
+    )
+    y0, x0 = max(-dy, 0), max(-dx, 0)
+    return p[y0 : y0 + H, x0 : x0 + W]
+
+
+def _box3(x: jnp.ndarray) -> jnp.ndarray:
+    """3x3 box sum via separable shifts."""
+    h = _shift(x, 0, -1) + x + _shift(x, 0, 1)
+    return _shift(h, -1, 0) + h + _shift(h, 1, 0)
+
+
+def corner_peaks(img: jnp.ndarray, nms_radius: int = 3, border: int = 16) -> jnp.ndarray:
+    """(H,W) image -> (H,W) NMS'd Shi-Tomasi response, -inf off-peak and
+    inside the `border` (the same response `detect_corners` ranks)."""
+    img = img.astype(jnp.float32)
+    H, W = img.shape
+    # Sobel gradients, /8 normalization as in shi_tomasi_response.
+    tl, t, tr = _shift(img, 1, 1), _shift(img, 1, 0), _shift(img, 1, -1)
+    bl, b, br = _shift(img, -1, 1), _shift(img, -1, 0), _shift(img, -1, -1)
+    l, r = _shift(img, 0, 1), _shift(img, 0, -1)
+    ix = (tr + 2 * r + br - tl - 2 * l - bl) * 0.125
+    iy = (bl + 2 * b + br - tl - 2 * t - tr) * 0.125
+    ixx = _box3(ix * ix) * (1.0 / 9.0)
+    iyy = _box3(iy * iy) * (1.0 / 9.0)
+    ixy = _box3(ix * iy) * (1.0 / 9.0)
+    tr_h = 0.5 * (ixx + iyy)
+    det_part = jnp.sqrt(jnp.maximum((0.5 * (ixx - iyy)) ** 2 + ixy * ixy, 0.0))
+    resp = tr_h - det_part
+    ys = jax.lax.broadcasted_iota(jnp.int32, (H, W), 0)
+    xs = jax.lax.broadcasted_iota(jnp.int32, (H, W), 1)
+    inside = (ys >= border) & (ys < H - border) & (xs >= border) & (xs < W - border)
+    neg_inf = jnp.float32(-jnp.inf)
+    resp = jnp.where(inside, resp, neg_inf)
+    # NMS: max over the (2r+1)^2 neighbourhood, separable (rows, then columns).
+    m = resp
+    for d in range(1, nms_radius + 1):
+        m = jnp.maximum(m, jnp.maximum(_shift(resp, 0, -d, -jnp.inf),
+                                       _shift(resp, 0, d, -jnp.inf)))
+    mm = m
+    for d in range(1, nms_radius + 1):
+        mm = jnp.maximum(mm, jnp.maximum(_shift(m, -d, 0, -jnp.inf),
+                                         _shift(m, d, 0, -jnp.inf)))
+    return jnp.where(resp >= mm, resp, neg_inf)
+
+
+def gaussian_blur_stencil(img: jnp.ndarray, sigma: float = 2.0, radius: int = 4) -> jnp.ndarray:
+    """Separable Gaussian blur by shift-and-add with baked-in weights (zero
+    padding, as `gaussian_blur`)."""
+    img = img.astype(jnp.float32)
+    x = np.arange(-radius, radius + 1)
+    g = np.exp(-0.5 * (x / sigma) ** 2)
+    g = (g / g.sum()).astype(np.float32)
+    h = img * float(g[radius])
+    for d in range(1, radius + 1):
+        h = h + (_shift(img, 0, -d) + _shift(img, 0, d)) * float(g[radius + d])
+    v = h * float(g[radius])
+    for d in range(1, radius + 1):
+        v = v + (_shift(h, -d, 0) + _shift(h, d, 0)) * float(g[radius + d])
+    return v
+
+
+@partial(jax.jit, static_argnames=("nms_radius", "border", "blur_radius", "blur_sigma"))
+def corner_peaks_and_blur(
+    img: jnp.ndarray,
+    nms_radius: int = 3,
+    border: int = 16,
+    blur_radius: int = 4,
+    blur_sigma: float = 2.0,
+):
+    """(H,W) image -> (NMS'd corner peaks, Gaussian-blurred image): the
+    production front-end's detection and descriptor-blur stage."""
+    return (
+        corner_peaks(img, nms_radius, border),
+        gaussian_blur_stencil(img, blur_sigma, blur_radius),
+    )
+
+
 def orientation(
     img: jnp.ndarray, uv: jnp.ndarray, patch_radius: int = 15
 ) -> jnp.ndarray:
     """ORB intensity-centroid orientation per keypoint (radians).
 
     Computes the patch moments m01/m10 for the whole image with two
-    weighted box convolutions (MXU-friendly), then gathers at keypoints.
+    weighted box convolutions, then gathers at keypoints.
     """
     r = patch_radius
     coords = jnp.arange(-r, r + 1, dtype=img.dtype)

@@ -1,7 +1,7 @@
 """Two-view epipolar geometry: essential-matrix estimation, scoring,
 decomposition and cheirality-based pose recovery (pure jnp, batched, masked).
 
-TPU-native replacement for the reference's OpenCV calls:
+Replacement for the reference's OpenCV calls:
   - `cv2.findEssentialMat` + epipolar-line scoring: `estimateEssential`
     (src/v2/helper_functions.py:47-70),
   - `cv2.recoverPose` + cheirality filtering: `estimateRelativePose`
@@ -41,7 +41,7 @@ def eight_point_essential(
     if weights is None:
         weights = jnp.ones(xn1.shape[:-1], dtype=xn1.dtype)
     # Hartley normalization (per input set): zero-mean, RMS sqrt(2). Critical
-    # for float32 conditioning of the 9x9 eigenproblem on TPU (no float64).
+    # for float32 conditioning of the 9x9 eigenproblem (no float64).
     w_sum = jnp.sum(weights, axis=-1, keepdims=True) + 1e-12
     mu1 = jnp.sum(xn1 * weights[..., None], axis=-2, keepdims=True) / w_sum[..., None]
     mu2 = jnp.sum(xn2 * weights[..., None], axis=-2, keepdims=True) / w_sum[..., None]
@@ -63,7 +63,7 @@ def eight_point_essential(
     A = jnp.stack(
         [x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2, x1, y1, one], axis=-1
     )  # (...,N,9)
-    # Weighted homogeneous solve via row-normalized Gram + eigh (TPU-fast;
+    # Weighted homogeneous solve via row-normalized Gram + eigh (batched;
     # the Hartley normalization above keeps the squared conditioning inside
     # float32 — see ops.linalg).
     e = linalg_mod.solve_weighted_homogeneous(A, jnp.sqrt(weights + 0.0))
@@ -134,8 +134,8 @@ def refine_essential_gn(
     """Refine an essential matrix by Gauss-Newton on the Sampson error over
     its minimal (R, t) parameterization (5 DOF: so(3) x tangent-of-S2).
 
-    This replaces large-SVD least-squares refits: float32 Gram/SVD solves on
-    TPU cannot reach the precision the inlier classification needs, while a
+    This replaces large-SVD least-squares refits: float32 Gram/SVD solves
+    cannot reach the precision the inlier classification needs, while a
     manifold GN iteration is cheap (einsums + one 5x5 solve per iteration)
     and lands at the geometric optimum. Robustness comes from the caller's
     IRLS weights.

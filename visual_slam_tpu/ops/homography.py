@@ -1,6 +1,6 @@
 """Homography estimation, scoring, and planar pose recovery (pure jnp).
 
-TPU-native replacement for the reference's homography branch:
+Replacement for the reference's homography branch:
   - `estimateHomography` + symmetric-transfer-error scoring
     (src/v2/helper_functions.py:73-88, cv2.findHomography RANSAC),
   - `cv2.decomposeHomographyMat` + realizable-solution selection inside

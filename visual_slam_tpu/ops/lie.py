@@ -1,6 +1,6 @@
 """SO(3) / SE(3) Lie-group operations as pure, batch-friendly jnp functions.
 
-TPU-native replacement for the reference's OpenCV `cv2.Rodrigues` usage
+Replacement for the reference's OpenCV `cv2.Rodrigues` usage
 (reference: src/v2/helper_functions.py:269-278 `transformMatrix`/`Rtorvec`)
 and the `Isometry3d` rigid-transform class (reference: src/v2/main.py:32-51).
 

@@ -1,7 +1,7 @@
-"""Small linear-algebra helpers tuned for TPU.
+"""Small linear-algebra helpers in float32.
 
-TPU has no float64 and its batched SVD lowers to slow QR-iteration loops;
-the homogeneous least-squares solves that SLAM needs everywhere
+The solves stay in float32 and avoid batched SVD (which lowers to
+QR-iteration loops); the homogeneous least-squares solves that SLAM needs everywhere
 (8-point, DLT PnP, DLT triangulation) are therefore solved as symmetric
 eigenproblems of the row-normalized Gram matrix: batched `eigh` of tiny
 (4x4 / 9x9 / 12x12) matrices maps onto fast batched Jacobi sweeps, and the

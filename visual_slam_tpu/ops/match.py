@@ -1,24 +1,17 @@
-"""Brute-force binary-descriptor matching on the MXU.
+"""Brute-force binary-descriptor matching as one matmul.
 
-TPU-native replacement for `cv2.BFMatcher().knnMatch(k=2)` + Lowe's ratio
+Replacement for `cv2.BFMatcher().knnMatch(k=2)` + Lowe's ratio
 test in the reference's FeatureMatcher (src/v2/frame.py:16-49), and for the
 mutual-nearest-neighbor variant in src/slam.py:24-57.
 
 The Hamming-distance matrix between two sets of 256-bit descriptors is
 computed as a single matmul of their ±1 expansions: for ±1 vectors a,b of
 length D, a·b = D - 2*hamming(a,b)  =>  hamming = (D - a·b)/2. A
-[K,256]x[256,K] bf16 matmul maps straight onto the MXU systolic array —
+[K,256]x[256,K] bf16 matmul runs on the tensor cores —
 this replaces the N²·128 scalar-distance work called out as a reference hot
 loop in SURVEY.md §3.
 
-This is the single production matcher. A fused VMEM-resident Pallas
-variant was built and benchmarked against it on TPU v5e at production
-shapes (2048x1024 descriptors): this XLA path measured 0.054 ms/call
-(~20 TFLOP/s effective on the MXU, <1% of frame time), while the Pallas
-kernel's monolithic [K1,K2] distance matrix exceeded the 16 MB VMEM
-scoped-allocation limit at those shapes (and its bf16 dot_general form
-was rejected by the Mosaic toolchain). The Pallas variant was retired
-rather than kept as unmaintained parallel code; numbers in BASELINE.md.
+This is the single production matcher.
 """
 from __future__ import annotations
 
@@ -34,7 +27,7 @@ def hamming_matrix(desc1: jnp.ndarray, desc2: jnp.ndarray) -> jnp.ndarray:
     """(K1,8),(K2,8) packed uint32 -> (K1,K2) float32 Hamming distances."""
     a = desc_mod.unpack_pm1(desc1)
     b = desc_mod.unpack_pm1(desc2)
-    # precision=DEFAULT: ±1 values are exact in bf16 and the MXU accumulates
+    # precision=DEFAULT: ±1 values are exact in bf16 and the matmul accumulates
     # in f32, so the fast path loses nothing (the package-wide default is
     # "highest", which would run this 6-pass for no accuracy gain).
     dot = jnp.dot(

@@ -1,7 +1,7 @@
 """Perspective-n-Point: batched DLT solver, Gauss-Newton refinement, and
 fixed-budget RANSAC wrapper (pure jnp).
 
-TPU-native replacement for `cv2.solvePnPRansac(..., useExtrinsicGuess=True)`
+Replacement for `cv2.solvePnPRansac(..., useExtrinsicGuess=True)`
 as used by the tracking loop (reference: src/v2/main.py:191-197) and for the
 rvec/tvec <-> matrix helpers `transformMatrix`/`Rtorvec`
 (src/v2/helper_functions.py:269-278) — the latter live in ops.lie here.
@@ -81,11 +81,11 @@ def pnp_gauss_newton(
     left-multiplied se(3) increments.
     """
     fx, fy = intr[0], intr[1]
-    # Channel-major layout: the big N axis rides the vector lanes. The
-    # original (N,2,3)/(N,3,6)/(N,2,6) einsum formulation measured
-    # ~0.2 ms/iteration at N=2048 on v5e (trailing-small-dim tensors pad to
-    # full lane tiles); these unrolled (N,) lane ops + 6x6 sum-reductions
-    # are the same math at a fraction of the traffic. Jacobian rows are the
+    # Channel-major layout: the big N axis is the contiguous one. The
+    # original (N,2,3)/(N,3,6)/(N,2,6) einsum formulation padded its
+    # trailing small dimensions to full vector tiles; these unrolled (N,)
+    # ops + 6x6 sum-reductions are the same math at a fraction of the
+    # traffic. Jacobian rows are the
     # identical closed forms used by models/ba_large._jacobians.
     Xt = Xw.T  # (3,N)
     uvt = uv.T  # (2,N)
@@ -163,11 +163,11 @@ def solve_pnp_tracked(
     Same contract as `solve_pnp_ransac` (and the same reference semantic —
     cv2.solvePnPRansac with useExtrinsicGuess, src/v2/main.py:191-197: OpenCV
     likewise refines the guess and only falls back to minimal-sample search
-    when the guess-seeded model loses the inlier vote). Rationale, measured
-    on TPU v5e at production shapes (N=2048, 128 hypotheses): the batched
-    12x12 eigh inside the DLT hypothesis solver costs 2.9 ms/frame while the
-    Huber-IRLS GN refine is ~0.02 ms — and with frame-rate motion priors the
-    hypothesis pool virtually never outvotes the refined prior. The RANSAC
+    when the guess-seeded model loses the inlier vote). Rationale: at
+    production shapes (N=2048, 128 hypotheses) the batched 12x12 eigh inside
+    the DLT hypothesis solver costs far more than the Huber-IRLS GN refine,
+    and with frame-rate motion priors the hypothesis pool virtually never
+    outvotes the refined prior. The RANSAC
     branch lives under `lax.cond`, so the common path never pays for it;
     a bad prior (fast motion, relocalization seeds) yields few GN inliers
     and auto-selects the RANSAC branch.

@@ -1,6 +1,6 @@
 """Pinhole-camera projection primitives (pure jnp, batch-friendly).
 
-TPU-native replacement for the reference's scattered projection helpers:
+Replacement for the reference's scattered projection helpers:
 `MakeHomogeneous` (src/v2/helper_functions.py:362-364),
 `CameraProjectionMatrix(2)` (src/v2/helper_functions.py:367-378),
 `cv2.undistortPoints` normalization (src/v2/helper_functions.py:27-28).

@@ -1,6 +1,6 @@
 """Batched-hypothesis RANSAC engine (fixed shape, jit/vmap-native).
 
-TPU-native replacement for OpenCV's sequential RANSAC loops inside
+Replacement for OpenCV's sequential RANSAC loops inside
 `cv2.findEssentialMat` (reference: src/v2/helper_functions.py:52) and
 `cv2.solvePnPRansac` (reference: src/v2/main.py:196).
 
@@ -8,7 +8,7 @@ Instead of data-dependent early-exit iteration, a fixed budget of B minimal
 sets is sampled at once, all B models are solved with a vmapped minimal
 solver, and all B x N residuals are scored in one batched computation —
 turning RANSAC into a handful of large dense ops that XLA tiles onto the
-MXU/VPU. Model selection uses the MSAC score (truncated residual), which is
+device. Model selection uses the MSAC score (truncated residual), which is
 what OpenCV's USAC/MAGSAC-era RANSAC effectively optimizes.
 """
 from __future__ import annotations

@@ -1,12 +1,12 @@
 """Batched triangulation (pure jnp, fixed-shape, mask-friendly).
 
-TPU-native replacement for the reference's per-point SVD loop
+Replacement for the reference's per-point SVD loop
 `triangulate` (src/v2/helper_functions.py:281-291, used at src/v2/main.py:284)
 and `triangulateMidPoint` (src/v2/helper_functions.py:90-123).
 
 Instead of an N-iteration Python loop of 4x4 SVDs, the DLT system is built
 for all points at once and solved with a batched symmetric eigendecomposition
-of A^T A (4x4), which XLA maps efficiently onto the TPU.
+of A^T A (4x4), which XLA batches into a few device ops.
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ def triangulate_dlt(
     r3 = uv2[..., 0:1] * P2[2] - P2[0]
     r4 = uv2[..., 1:2] * P2[2] - P2[1]
     A = jnp.stack([r1, r2, r3, r4], axis=-2)  # (N,4,4)
-    # Row-normalized Gram + eigh (TPU-fast batched Jacobi; row normalization
+    # Row-normalized Gram + eigh (batched Jacobi; row normalization
     # tames the ~f-scale rows of pixel-space projection matrices).
     return linalg_mod.solve_homogeneous(A)
 

@@ -1,7 +1,7 @@
 """Two-view relative pose estimation: RANSAC essential matrix + cheirality
 pose recovery, composed from the batched primitives.
 
-TPU-native equivalent of the reference's `estimateEssential`
+Equivalent of the reference's `estimateEssential`
 (src/v2/helper_functions.py:47-70) and `estimateRelativePose` (:164-209)
 pair as called from the map-initialization loop (src/v2/main.py:103-114).
 """

@@ -1,9 +1,10 @@
 """Device-mesh helpers for multi-chip / multi-host execution.
 
 The reference has no distributed layer at all (SURVEY.md §2.3); scaling here
-comes from `jax.sharding.Mesh` + shard_map with XLA collectives over
-ICI/DCN — the TPU-native equivalent of the NCCL/MPI stacks other frameworks
-bolt on.
+comes from `jax.sharding.Mesh` + shard_map with XLA collectives (NCCL
+over NVLink between the GPUs of one host). Meshes are flat device lists:
+every card reaches every other at the same rate, so the mesh follows the
+algorithm alone.
 """
 from __future__ import annotations
 

@@ -2,12 +2,12 @@
 
 The reference has NO distributed layer (SURVEY.md §2.3 — its only
 inter-process communication is a multiprocessing.Queue to the Pangolin
-viewer, viewer.py:11-16). This module is the BASELINE.json north-star
+viewer, viewer.py:11-16). This module is the north-star
 "collective backend" row: processes join a cluster via
 `jax.distributed.initialize`, a global Mesh spans every host's devices,
 and the landmark-sharded BA (parallel/sharded_ba.py) runs unchanged on
-top — `jax.lax.psum` compiles to ICI collectives within a slice and DCN
-transfers across hosts. No NCCL/MPI: the XLA runtime IS the backend.
+top — `jax.lax.psum` compiles to the runtime's collectives within a host
+and to cross-host transfers between processes.
 
 Tested without multi-host hardware by spawning N CPU processes
 (`XLA_FLAGS=--xla_force_host_platform_device_count=M`,
@@ -58,8 +58,7 @@ def host_device_mesh(host_axis: str = "host", dev_axis: str = "dev") -> Mesh:
     """2-D (n_hosts, devices_per_host) mesh.
 
     Row h = the local devices of process h, so collectives along `dev_axis`
-    stay on-host/ICI and only the `host_axis` reductions cross DCN —
-    the layout discipline of the scaling-book recipe.
+    stay on-host and only the `host_axis` reductions cross hosts.
     """
     devs = sorted(jax.devices(), key=lambda d: (d.process_index, d.id))
     n_hosts = jax.process_count()

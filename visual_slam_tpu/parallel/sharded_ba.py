@@ -1,13 +1,12 @@
 """Distributed bundle adjustment: landmark-sharded Schur elimination over a
 device mesh.
 
-The BASELINE.json north-star component: partition the LANDMARK axis (and
+The north-star component: partition the LANDMARK axis (and
 with it each landmark's observation slots — the planar (P, Q) layout keeps
 a point's measurements contiguous) across devices/hosts. Each shard builds
 its partial camera-side blocks (U, g_c, and the reduced camera system /
 Schur matvec contributions) from its own landmarks; `jax.lax.psum` over the
-mesh combines them — collectives ride ICI within a slice, DCN across
-hosts. The landmark side (V, g_p, delta_p) is embarrassingly local: it
+mesh combines them. The landmark side (V, g_p, delta_p) is embarrassingly local: it
 never crosses a shard boundary. The math lives in models/ba.py
 (axis_name-aware); this module wraps it in shard_map over a Mesh.
 
@@ -75,11 +74,9 @@ def optimize_sharded(
 def _sharded_runner(mesh, n_iters, cg_iters, points_fixed, solver, use_depth):
     """Build-and-cache the jitted shard_map runner.
 
-    Two lessons measured on TPU v5e at config-#5 scale: shard_map called
-    OUTSIDE jit dispatches op-by-op (~7x slower than the same computation
-    under an outer jit), and a fresh closure per call re-traces the whole
-    LM scan (~7 s even on compile-cache hits) — so the jitted callable is
-    cached per (mesh, static-params)."""
+    shard_map called OUTSIDE jit dispatches op-by-op, and a fresh closure
+    per call re-traces the whole LM scan (seconds even on compile-cache
+    hits) — so the jitted callable is cached per (mesh, static-params)."""
     axis = mesh.axis_names[0]
     in_specs = problem_specs(axis)
     out_specs = (in_specs, P())
@@ -107,13 +104,12 @@ def optimize_large_sharded(
     points_fixed: bool = False,
     init_lambda: float = 1e-4,
 ):
-    """Landmark-sharded LARGE-MAP bundle adjustment (BASELINE config #5).
+    """Landmark-sharded LARGE-MAP bundle adjustment (config #5).
 
     Same sharding contract as optimize_sharded, but the per-shard solver is
     models/ba_large.py: channel-major (18,N) coupling, never (K,P)-dense,
-    with camera gathers/reductions as Pallas one-hot MXU kernels on TPU —
-    memory linear in observations, the path that reaches ~5k keyframes x
-    ~1M landmarks.
+    with camera gathers/reductions as XLA gather/scatter — memory linear in
+    observations, the path that reaches ~5k keyframes x ~1M landmarks.
     """
     from ..models import ba_large
 
@@ -140,9 +136,8 @@ def _large_runner(mesh, n_iters, cg_iters, points_fixed, init_lambda):
         mesh=mesh,
         in_specs=(in_specs,),
         out_specs=out_specs,
-        # The Pallas segment kernels inside ba_large don't annotate
-        # varying-mesh-axes on their out_shapes; skip the vma check (the
-        # sharding contract is validated by the numeric-identity tests).
+        # Skip the varying-mesh-axes check (the sharding contract is
+        # validated by the numeric-identity tests).
         check_vma=False,
     )
     def _run(prob):

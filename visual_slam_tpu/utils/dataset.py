@@ -1,6 +1,6 @@
 """ICL-NUIM / TUM-RGBD dataset reader.
 
-TPU-native framework's data layer for the reference's bundled dataset
+The framework's data layer for the reference's bundled dataset
 (`data/ICL_NUIM`: associations.txt, rgb/, depth/ 16-bit PNG at scale 5000,
 traj3.gt.freiburg TUM-format ground truth — see SURVEY.md §1 "Data layer").
 The reference hard-codes paths and reads images ad hoc per frame
@@ -142,7 +142,7 @@ class ICLNUIMDataset:
 class WindowView:
     """A pseudo-sequence view over a dataset: offset / strided / reversed
     frame window. Used to synthesize DISTINCT sequences for the batched
-    multi-sequence driver (BASELINE config #3) when only one physical
+    multi-sequence driver (config #3) when only one physical
     sequence exists locally — e.g. WindowView(ds, 100) and
     WindowView(ds, 300, reverse=True) exercise genuinely different
     trajectories through the same scene."""

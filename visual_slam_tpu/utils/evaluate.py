@@ -2,8 +2,8 @@
 
 The reference ships TUM-format ground truth but contains no evaluation code
 at all (SURVEY.md §4: "no code reads it — ATE evaluation was
-manual/external"). This module is the framework's accuracy oracle for the
-BASELINE.md parity targets.
+manual/external"). This module is the framework's accuracy oracle (ATE
+bounds of the tests, chip_smoke.py and bench.py).
 """
 from __future__ import annotations
 

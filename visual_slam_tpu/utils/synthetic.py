@@ -1,4 +1,4 @@
-"""Synthetic large-map problem builder (BASELINE.json config #5 shape).
+"""Synthetic large-map problem builder (config #5 shape).
 
 A loop trajectory of K cameras observing P landmarks Q times each, emitted
 directly in the packed planar BAProblem layout (point p's Q observation
